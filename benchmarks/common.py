@@ -3,7 +3,7 @@
 This directory is the rebuild's analogue of the reference's ``benchmarks/``
 scripts (SURVEY.md §2.1: per-dataset drivers; train/val early stopping;
 test accuracy + NLPP reporting). Datasets: local UEA archives when present
-(``GPSIG_TPU_DATA_DIR``), synthetic generators otherwise (zero-egress
+(``GPSIG_DATA_DIR``), synthetic generators otherwise (zero-egress
 machine — SURVEY.md §7).
 """
 
@@ -26,8 +26,17 @@ def base_parser(desc):
 
 
 def setup_jax(args):
+    """Apply --cpu/--x64 and the compile-cache rule:
+    ``$JAX_COMPILATION_CACHE_DIR`` when set, else ``.jax_cache`` in the
+    checkout."""
+    import os
+
     import jax
 
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        jax.config.update("jax_compilation_cache_dir",
+                          os.path.join(root, ".jax_cache"))
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
     if args.x64:
@@ -55,8 +64,8 @@ def accuracy_and_nlpp(model, X, y, key=None):
 
 def get_classification_data(dataset, seed, synth_kwargs=None):
     """UEA dataset if available locally, else synthetic fallback."""
-    from gpsig_tpu.data import preprocessing as prep
-    from gpsig_tpu.data import synthetic, uea, uea_like
+    from gpsig.data import preprocessing as prep
+    from gpsig.data import synthetic, uea, uea_like
 
     loader = None
     if dataset and dataset in uea.available_datasets():

@@ -16,9 +16,9 @@ def main():
     jax = setup_jax(args)
     import jax.numpy as jnp
 
-    from gpsig_tpu.data.synthetic import regression_sequences
-    from gpsig_tpu.kernels.signature import SignatureRBF
-    from gpsig_tpu.models.gpr import GPR
+    from gpsig.data.synthetic import regression_sequences
+    from gpsig.kernels.signature import SignatureRBF
+    from gpsig.models.gpr import GPR
 
     dtype = jnp.float64 if args.x64 else jnp.float32
     X, y = regression_sequences(seed=args.seed, N=200, L=50, d=2)

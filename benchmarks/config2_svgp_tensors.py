@@ -34,11 +34,11 @@ def main():
     jax = setup_jax(args)
     import jax.numpy as jnp
 
-    from gpsig_tpu import likelihoods as liks
-    from gpsig_tpu.inducing import make_inducing_tensors_from_data
-    from gpsig_tpu.kernels.signature import SignatureRBF
-    from gpsig_tpu.models.svgp import SVGP
-    from gpsig_tpu.training.loop import fit
+    from gpsig import likelihoods as liks
+    from gpsig.inducing import make_inducing_tensors_from_data
+    from gpsig.kernels.signature import SignatureRBF
+    from gpsig.models.svgp import SVGP
+    from gpsig.training.loop import fit
 
     Xtr, ytr, Xte, yte, name = get_classification_data(
         args.dataset, args.seed,

@@ -40,13 +40,13 @@ def main():
     import numpy as np
     import optax
 
-    from gpsig_tpu import likelihoods as liks
-    from gpsig_tpu.inducing import make_inducing_tensors_from_data
-    from gpsig_tpu.kernels.signature import SignatureRBF
-    from gpsig_tpu.models.svgp import SVGP
-    from gpsig_tpu.parallel import mesh as meshlib
-    from gpsig_tpu.parallel.train import make_sharded_step_fn
-    from gpsig_tpu.training.loop import init_state
+    from gpsig import likelihoods as liks
+    from gpsig.inducing import make_inducing_tensors_from_data
+    from gpsig.kernels.signature import SignatureRBF
+    from gpsig.models.svgp import SVGP
+    from gpsig.parallel import mesh as meshlib
+    from gpsig.parallel.train import make_sharded_step_fn
+    from gpsig.training.loop import init_state
 
     Xtr, ytr, Xte, yte, name = get_classification_data(
         args.dataset, args.seed,

@@ -38,16 +38,16 @@ def main():
     jax = setup_jax(args)
     import jax.numpy as jnp
 
-    from gpsig_tpu import likelihoods as liks
-    from gpsig_tpu.data import preprocessing as prep
-    from gpsig_tpu.data.synthetic import sits_sequences
-    from gpsig_tpu.kernels.vosf import (
+    from gpsig import likelihoods as liks
+    from gpsig.data import preprocessing as prep
+    from gpsig.data.synthetic import sits_sequences
+    from gpsig.kernels.vosf import (
         ExplicitSignatureKernel,
         OrthogonalSignatureFeatures,
     )
-    from gpsig_tpu.models.svgp import SVGP
-    from gpsig_tpu.ops.explicit import signature_dim
-    from gpsig_tpu.training.loop import fit
+    from gpsig.models.svgp import SVGP
+    from gpsig.ops.explicit import signature_dim
+    from gpsig.training.loop import fit
 
     dtype = jnp.float64 if args.x64 else jnp.float32
     N = args.num_train + args.num_test
@@ -78,7 +78,7 @@ def main():
     # steady-state timing: re-run a timed chunk on the compiled step
     import optax
 
-    from gpsig_tpu.training.loop import init_state, make_step_fn
+    from gpsig.training.loop import init_state, make_step_fn
 
     step_fn = make_step_fn(optax.adam(5e-3), num_data=args.num_train,
                            gamma=max(args.gamma, 0.1),

@@ -4,7 +4,7 @@ The reference's de-facto integration test is benchmark reproduction on UEA
 archives (SURVEY.md §4 item 3). With no archives on this machine, this
 harness makes that target falsifiable offline: it trains the standard
 protocol (SVGP + inducing tensors, alternating NatGrad+Adam — SURVEY.md
-§2.1 Benchmarks row) on the five frozen ``gpsig_tpu.data.uea_like``
+§2.1 Benchmarks row) on the five frozen ``gpsig.data.uea_like``
 datasets and checks test accuracy + NLPP against the committed windows in
 ``benchmarks/expected_windows.json`` (calibrated from float64 CPU runs).
 Exit code 1 on any violation.
@@ -16,7 +16,7 @@ Calibration runs the protocol once per seed in ``--calib-seeds`` (default
 nlpp_max = max-over-seeds·1.15 + 0.05, so a kernel bug costing a few
 points on every dataset fails the harness while seed/f32 jitter passes
 (VERDICT r2 #6). The checking run itself always uses seed 0.
-Real UEA archives (when present under GPSIG_TPU_DATA_DIR) can be named via
+Real UEA archives (when present under GPSIG_DATA_DIR) can be named via
 ``--datasets`` too; they are reported but never window-checked.
 """
 
@@ -87,13 +87,13 @@ def _build_model(name, variant, protocol, Xtr_j, d, C, dtype):
     import jax
     import jax.numpy as jnp
 
-    from gpsig_tpu import likelihoods as liks
-    from gpsig_tpu.models.svgp import SVGP
+    from gpsig import likelihoods as liks
+    from gpsig.models.svgp import SVGP
 
     nl = protocol["num_levels"]
     key = jax.random.PRNGKey(protocol["seed"])
     if variant == "vosf":
-        from gpsig_tpu.kernels.vosf import (
+        from gpsig.kernels.vosf import (
             ExplicitSignatureKernel,
             OrthogonalSignatureFeatures,
         )
@@ -105,11 +105,11 @@ def _build_model(name, variant, protocol, Xtr_j, d, C, dtype):
         return SVGP.create(kern, liks.MultiClass(num_classes=C), feat,
                            num_latent=C, q_diag=True, dtype=dtype)
     if variant == "pde":
-        from gpsig_tpu.inducing import (
+        from gpsig.inducing import (
             InducingSequences,
             make_inducing_sequences_from_data,
         )
-        from gpsig_tpu.kernels.pde import UntruncatedSignatureKernel
+        from gpsig.kernels.pde import UntruncatedSignatureKernel
 
         kern = UntruncatedSignatureKernel.create(
             d, lengthscales=float(np.sqrt(d)), normalization=True,
@@ -120,8 +120,8 @@ def _build_model(name, variant, protocol, Xtr_j, d, C, dtype):
         return SVGP.create(kern, liks.MultiClass(num_classes=C), feat,
                            num_latent=C, dtype=dtype)
     if variant == "vosfpde":
-        from gpsig_tpu.kernels.pde import UntruncatedSignatureKernel
-        from gpsig_tpu.kernels.vosf import OrthogonalSignatureFeatures
+        from gpsig.kernels.pde import UntruncatedSignatureKernel
+        from gpsig.kernels.vosf import OrthogonalSignatureFeatures
 
         kern = UntruncatedSignatureKernel.create(
             d, lengthscales=float(np.sqrt(d)), normalization=True,
@@ -130,8 +130,8 @@ def _build_model(name, variant, protocol, Xtr_j, d, C, dtype):
         return SVGP.create(kern, liks.MultiClass(num_classes=C), feat,
                            num_latent=C, q_diag=True, dtype=dtype)
     if variant == "lowrank":
-        from gpsig_tpu.inducing import make_inducing_sequences_from_data
-        from gpsig_tpu.kernels.low_rank import LowRankSignatureRBF
+        from gpsig.inducing import make_inducing_sequences_from_data
+        from gpsig.kernels.low_rank import LowRankSignatureRBF
 
         # The sketch index sets and Nystrom landmarks are model
         # configuration, not a training seed: pin them so the calibration
@@ -148,8 +148,8 @@ def _build_model(name, variant, protocol, Xtr_j, d, C, dtype):
             k2, Xtr_j, protocol["num_sequences"], protocol["seq_len"], d)
         return SVGP.create(kern, liks.MultiClass(num_classes=C), feat,
                            num_latent=C, dtype=dtype)
-    from gpsig_tpu.inducing import make_inducing_tensors_from_data
-    from gpsig_tpu.kernels.signature import SignatureRBF
+    from gpsig.inducing import make_inducing_tensors_from_data
+    from gpsig.kernels.signature import SignatureRBF
 
     kern = SignatureRBF(d, nl, lengthscales=float(np.sqrt(d)), order=1,
                         normalization=True, dtype=dtype)
@@ -175,7 +175,7 @@ def run_dataset(name, args, protocol=None):
     import jax  # noqa: F401
     import jax.numpy as jnp
 
-    from gpsig_tpu.training.loop import fit
+    from gpsig.training.loop import fit
 
     base, variant, default_proto = split_variant(name)
     protocol = protocol or default_proto
@@ -224,7 +224,7 @@ def main():
     args = p.parse_args()
     setup_jax(args)
 
-    from gpsig_tpu.data import uea_like
+    from gpsig.data import uea_like
 
     names = args.datasets or (
         uea_like.available_datasets() + VARIANT_SUITE

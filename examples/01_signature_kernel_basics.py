@@ -15,22 +15,22 @@ import numpy as np
 
 import jax
 
-# examples default to CPU float64 (the parity mode); set GPSIG_EXAMPLE_TPU=1
+# examples default to CPU float64 (the parity mode); set GPSIG_EXAMPLE_DEVICE=1
 # to run on the accelerator in float32.
 import os
-if not os.environ.get("GPSIG_EXAMPLE_TPU"):
+if not os.environ.get("GPSIG_EXAMPLE_DEVICE"):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
-from gpsig_tpu import (
+from gpsig import (
     GPR,
     SignatureLinear,
     SignatureRBF,
     UntruncatedSignatureKernel,
 )
-from gpsig_tpu.data.synthetic import regression_sequences
+from gpsig.data.synthetic import regression_sequences
 
 
 def main():

@@ -17,20 +17,20 @@ import numpy as np
 import jax
 
 import os
-if not os.environ.get("GPSIG_EXAMPLE_TPU"):
+if not os.environ.get("GPSIG_EXAMPLE_DEVICE"):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
-from gpsig_tpu import SVGP, SignatureRBF, likelihoods
-from gpsig_tpu import make_inducing_tensors_from_data
-from gpsig_tpu.data import preprocessing as prep
-from gpsig_tpu.data.synthetic import (
+from gpsig import SVGP, SignatureRBF, likelihoods
+from gpsig import make_inducing_tensors_from_data
+from gpsig.data import preprocessing as prep
+from gpsig.data.synthetic import (
     classification_sequences,
     train_test_split,
 )
-from gpsig_tpu.training.loop import fit
+from gpsig.training.loop import fit
 
 
 def main():
@@ -70,12 +70,12 @@ def main():
     # checkpoint round trip
     import optax
 
-    from gpsig_tpu.training.loop import init_state
-    from gpsig_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from gpsig.training.loop import init_state
+    from gpsig.utils.checkpoint import restore_checkpoint, save_checkpoint
 
     state = init_state(model, optax.adam(1e-3))
-    save_checkpoint("/tmp/gpsig_tpu_example_ckpt", state)
-    restored = restore_checkpoint("/tmp/gpsig_tpu_example_ckpt", state)
+    save_checkpoint("/tmp/gpsig_example_ckpt", state)
+    restored = restore_checkpoint("/tmp/gpsig_example_ckpt", state)
     print("checkpoint restored; q_mu equal:",
           bool(jnp.allclose(restored.model.q_mu, model.q_mu)))
 

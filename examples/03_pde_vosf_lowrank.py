@@ -17,26 +17,26 @@ import numpy as np
 import jax
 
 import os
-if not os.environ.get("GPSIG_EXAMPLE_TPU"):
+if not os.environ.get("GPSIG_EXAMPLE_DEVICE"):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
 import jax.numpy as jnp
 
-from gpsig_tpu import (
+from gpsig import (
     SVGP,
     ExplicitSignatureKernel,
     OrthogonalSignatureFeatures,
     UntruncatedSignatureKernel,
     likelihoods,
 )
-from gpsig_tpu.kernels.low_rank import LowRankSignatureRBF
-from gpsig_tpu.data import preprocessing as prep
-from gpsig_tpu.data.synthetic import (
+from gpsig.kernels.low_rank import LowRankSignatureRBF
+from gpsig.data import preprocessing as prep
+from gpsig.data.synthetic import (
     classification_sequences,
     train_test_split,
 )
-from gpsig_tpu.training.loop import fit
+from gpsig.training.loop import fit
 
 
 def main():

@@ -1,4 +1,4 @@
-"""Migrating a reference (GPSig / GPflow 1.x) script to gpsig_tpu.compat.
+"""Migrating a reference (GPSig / GPflow 1.x) script to gpsig.compat.
 
 The compat package mirrors the reference's module layout and call
 conventions (SURVEY.md §2.1: ``gpsig.kernels`` / ``inducing_variables`` /
@@ -20,14 +20,14 @@ import numpy as np
 
 import jax
 
-if not os.environ.get("GPSIG_EXAMPLE_TPU"):
+if not os.environ.get("GPSIG_EXAMPLE_DEVICE"):
     jax.config.update("jax_platforms", "cpu")
     jax.config.update("jax_enable_x64", True)
 
 # the reference's `import gpsig` becomes:
-from gpsig_tpu import compat as gpsig
-from gpsig_tpu import make_inducing_tensors_from_data
-from gpsig_tpu.data.synthetic import classification_sequences, \
+from gpsig import compat as gpsig
+from gpsig import make_inducing_tensors_from_data
+from gpsig.data.synthetic import classification_sequences, \
     train_test_split
 
 

@@ -3,10 +3,10 @@
 // The reference's data ingestion is sktime's Python .arff/.ts reader
 // (SURVEY.md §3.5) — fine at GunPoint scale, minutes at InsectWingbeat
 // scale (tens of thousands of series × dozens of channels). This is the
-// TPU-framework's native-runtime counterpart: a single-pass C++ parser
+// library's native-runtime counterpart: a single-pass C++ parser
 // (mmap-free, one read; strtod over the raw buffer; forward-fill of
 // missing values done in-place) exposed through a tiny C API consumed via
-// ctypes in gpsig_tpu/data/_native.py. Python's parser remains as the
+// ctypes in gpsig/data/_native.py. Python's parser remains as the
 // fallback and the correctness oracle (tests/test_data_utils.py).
 //
 // Protocol (all functions extern "C"):

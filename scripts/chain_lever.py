@@ -1,4 +1,4 @@
-"""Measure the chains-per-device lever (VERDICT r3 #3) on the virtual
+"""Measure the chains-per-device lever on the virtual
 8-device CPU mesh.
 
 `lax.while_loop` under vmap runs every chain in a device's block until the
@@ -10,19 +10,18 @@ this tax across blocks. This script measures that directly, with the same
 128 chains and the same signature-GPR posterior:
 
   1x128   one device, one vmap block of 128 chains
-  8x16    eight (virtual) devices, blocks of 16   [the pod configuration]
+  8x16    eight (virtual) devices, blocks of 16   [the multi-device configuration]
   seq 8x16  eight blocks of 16 run back-to-back on ONE device — isolates
             the block-size effect from host-parallel execution of the
             virtual devices (2 physical cores serve all 8), i.e. the
-            per-device work a pod chip would see, summed
+            per-device work one card would see, summed
 
 and compares the measured walls with the utilization predicted from the
 run's own leaf counts (useful/executed leapfrogs per transition —
 grouping-independent, so one run predicts every grouping).
 
-CPU-only (virtual devices); the on-chip counterpart is
-`scripts/validate_tpu.py nuts_scale`, whose 1x128 block is the real-chip
-measurement of the same serialization.
+CPU-only (virtual devices); on a card, `chip_smoke.py`'s nuts phase
+measures one vmap block of chains on one device.
 """
 
 import json
@@ -45,12 +44,12 @@ def main():
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from gpsig_tpu import params as pr
-    from gpsig_tpu.data.synthetic import regression_sequences
-    from gpsig_tpu.kernels.signature import SignatureRBF
-    from gpsig_tpu.models.gpr import GPR
-    from gpsig_tpu.parallel import mesh as meshlib
-    from gpsig_tpu.parallel.chains import make_chunked_sampler
+    from gpsig import params as pr
+    from gpsig.data.synthetic import regression_sequences
+    from gpsig.kernels.signature import SignatureRBF
+    from gpsig.models.gpr import GPR
+    from gpsig.parallel import mesh as meshlib
+    from gpsig.parallel.chains import make_chunked_sampler
 
     dtype = jnp.float32
     d, nl, N, L = 2, 3, 24, 12

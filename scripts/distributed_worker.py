@@ -10,7 +10,7 @@ Launched (typically twice) by tests/test_distributed.py or by hand:
 Each process exposes ``--local-devices`` virtual CPU devices, joins the
 coordination service, builds the global (num_processes × local) 'data'
 mesh, and runs the deterministic SVGP problem of
-``gpsig_tpu.parallel.distributed_check`` — the sharded ELBO/natgrad/Adam
+``gpsig.parallel.distributed_check`` — the sharded ELBO/natgrad/Adam
 step whose psums now genuinely cross process boundaries. Prints one JSON
 line with the final ELBO and a model checksum (replicated values,
 identical across processes and equal to a single-process run).
@@ -44,8 +44,8 @@ import jax  # noqa: E402
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_enable_x64", True)
 
-from gpsig_tpu.parallel import mesh as meshlib  # noqa: E402
-from gpsig_tpu.parallel import distributed_check as dc  # noqa: E402
+from gpsig.parallel import mesh as meshlib  # noqa: E402
+from gpsig.parallel import distributed_check as dc  # noqa: E402
 
 meshlib.init_distributed(
     coordinator=args.coordinator,

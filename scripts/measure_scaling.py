@@ -10,15 +10,15 @@ reference's M≈500 benchmark maps to when the dataset is sharded):
 (with k× the global batch per step, so ideal weak scaling keeps steps/s
 flat and multiplies samples/s by k).
 
-Single process (virtual devices or one TPU host):
+Single process (virtual devices or one GPU host):
     python scripts/measure_scaling.py --devices 1 2 4 8 --cpu
 
 Multi-host (one process per host; run on every host, process 0 reports):
     python scripts/measure_scaling.py --coordinator host0:9911 \
         --num-processes 2 --process-id <i>
 
-On a real pod slice, drop --cpu and the XLA device-count override: the
-same mesh/step code shards over ICI within the slice and DCN across
+On GPU hosts, drop --cpu and the XLA device-count override: the same
+mesh/step code shards over NVLink within a host and the network across
 hosts via jax.distributed.
 """
 
@@ -69,13 +69,13 @@ if args.cpu or multiproc:
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
-from gpsig_tpu import likelihoods as liks  # noqa: E402
-from gpsig_tpu.inducing import make_inducing_tensors_from_data  # noqa: E402
-from gpsig_tpu.kernels.signature import SignatureRBF  # noqa: E402
-from gpsig_tpu.models.svgp import SVGP  # noqa: E402
-from gpsig_tpu.parallel import mesh as meshlib  # noqa: E402
-from gpsig_tpu.parallel.train import make_sharded_step_fn  # noqa: E402
-from gpsig_tpu.training.loop import init_state  # noqa: E402
+from gpsig import likelihoods as liks  # noqa: E402
+from gpsig.inducing import make_inducing_tensors_from_data  # noqa: E402
+from gpsig.kernels.signature import SignatureRBF  # noqa: E402
+from gpsig.models.svgp import SVGP  # noqa: E402
+from gpsig.parallel import mesh as meshlib  # noqa: E402
+from gpsig.parallel.train import make_sharded_step_fn  # noqa: E402
+from gpsig.training.loop import init_state  # noqa: E402
 
 
 def build(dtype, d=2, C=4):

@@ -1,4 +1,4 @@
-"""Tests for the GPSig-compatible API surface (gpsig_tpu.compat).
+"""Tests for the GPSig-compatible API surface (gpsig.compat).
 
 The compat layer must (a) expose the reference's module layout and call
 conventions (SURVEY.md §2.1: flattened [N, L*d] inputs, ``input_dim``
@@ -10,9 +10,9 @@ with the functional core it wraps.
 import numpy as np
 import pytest
 
-from gpsig_tpu import compat as gpsig
-from gpsig_tpu.kernels.signature import SignatureRBF as CoreRBF
-from gpsig_tpu.ops.signature import tensor_factor_count
+from gpsig import compat as gpsig
+from gpsig.kernels.signature import SignatureRBF as CoreRBF
+from gpsig.ops.signature import tensor_factor_count
 
 N, L, D, C, NL = 20, 10, 2, 3, 3
 
@@ -156,7 +156,7 @@ def test_fit_helper_improves_elbo(data):
 
 def test_pde_kernel_wrapper(data):
     X, _ = data
-    from gpsig_tpu.kernels.pde import UntruncatedSignatureKernel
+    from gpsig.kernels.pde import UntruncatedSignatureKernel
 
     # smooth paths (cumsum) — at dyadic_order=0 the finite-difference diag
     # is only meaningful on smooth inputs (see kernels/pde.py normalization

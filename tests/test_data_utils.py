@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from gpsig_tpu.data import preprocessing as prep
-from gpsig_tpu.data import synthetic, uea
+from gpsig.data import preprocessing as prep
+from gpsig.data import synthetic, uea
 
 
 def test_tabulate_repeat_last():
@@ -53,7 +53,7 @@ def test_ts_parser_roundtrip(tmp_path):
 
 def test_native_ts_parser_matches_python(tmp_path):
     """Native C++ parser (native/fastts.cpp) vs the Python oracle."""
-    from gpsig_tpu.data import _native
+    from gpsig.data import _native
 
     rng = np.random.default_rng(0)
     lines = ["@problemName Big", "# comment", "@data"]
@@ -92,8 +92,8 @@ def test_synthetic_separable():
 
 
 def test_sharded_loader_covers_devices():
-    from gpsig_tpu.parallel import mesh as meshlib
-    from gpsig_tpu.parallel.loader import ShardedLoader
+    from gpsig.parallel import mesh as meshlib
+    from gpsig.parallel.loader import ShardedLoader
 
     mesh = meshlib.make_mesh(data=8, tile=1)
     X = np.random.randn(64, 5, 2)
@@ -107,12 +107,12 @@ def test_sharded_loader_covers_devices():
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    from gpsig_tpu import likelihoods as liks
-    from gpsig_tpu.inducing import make_inducing_tensors_from_data
-    from gpsig_tpu.kernels.signature import SignatureRBF
-    from gpsig_tpu.models.svgp import SVGP
-    from gpsig_tpu.training.loop import init_state
-    from gpsig_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from gpsig import likelihoods as liks
+    from gpsig.inducing import make_inducing_tensors_from_data
+    from gpsig.kernels.signature import SignatureRBF
+    from gpsig.models.svgp import SVGP
+    from gpsig.training.loop import init_state
+    from gpsig.utils.checkpoint import restore_checkpoint, save_checkpoint
 
     rng = np.random.default_rng(0)
     X = jnp.asarray(rng.standard_normal((6, 5, 2)))

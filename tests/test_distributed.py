@@ -66,8 +66,8 @@ def test_two_process_step_matches_single_process():
 
     # and match the single-process 8-virtual-device reference (conftest
     # fakes 8 CPU devices in this test process)
-    from gpsig_tpu.parallel import distributed_check as dc
-    from gpsig_tpu.parallel import mesh as meshlib
+    from gpsig.parallel import distributed_check as dc
+    from gpsig.parallel import mesh as meshlib
 
     assert len(jax.devices()) == 8
     mesh = meshlib.make_mesh(data=8, tile=1)
@@ -82,8 +82,7 @@ def test_measure_scaling_two_process_emits_artifact(tmp_path):
     CI-runnable in 2-process CPU mode so the BASELINE >=80% number is one
     command away on real hardware. Runs scripts/measure_scaling.py with
     two jax.distributed processes (2 virtual devices each) and checks
-    process 0 emits a well-formed artifact row; a fuller committed sample
-    lives at benchmarks/scaling_sample.json."""
+    process 0 emits a well-formed artifact row."""
     port = _free_port()
     emit = tmp_path / "scaling_row.json"
     common = ["--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",

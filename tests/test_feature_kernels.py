@@ -7,15 +7,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gpsig_tpu.kernels.low_rank import LowRankSignatureRBF
-from gpsig_tpu.kernels.pde import UntruncatedSignatureKernel
-from gpsig_tpu.kernels.signature import SignatureLinear, SignatureRBF
-from gpsig_tpu.kernels.vosf import (
+from gpsig.kernels.low_rank import LowRankSignatureRBF
+from gpsig.kernels.pde import UntruncatedSignatureKernel
+from gpsig.kernels.signature import SignatureLinear, SignatureRBF
+from gpsig.kernels.vosf import (
     ExplicitSignatureKernel,
     OrthogonalSignatureFeatures,
 )
-from gpsig_tpu.models.svgp import SVGP
-from gpsig_tpu import likelihoods as liks
+from gpsig.models.svgp import SVGP
+from gpsig import likelihoods as liks
 from oracles import explicit_signature
 
 
@@ -24,7 +24,7 @@ def _paths(rng, N, L, d, scale=0.4):
 
 
 def test_truncated_signature_matches_oracle():
-    from gpsig_tpu.ops.explicit import truncated_signature
+    from gpsig.ops.explicit import truncated_signature
 
     rng = np.random.default_rng(0)
     X = _paths(rng, 3, 6, 2)
@@ -125,7 +125,7 @@ def test_vosf_identity_path_matches_generic_conditional():
     m1, v1 = model.predict_f(X)
 
     # generic dense path (identity flag off) must agree
-    from gpsig_tpu import gauss
+    from gpsig import gauss
 
     Kuu = feat.Kuu(kern)
     Kuf = feat.Kuf(kern, X)
@@ -140,7 +140,7 @@ def test_vosf_identity_path_matches_generic_conditional():
 
 
 def test_vosf_trains_fast_path():
-    from gpsig_tpu.training.loop import fit
+    from gpsig.training.loop import fit
 
     rng = np.random.default_rng(5)
     N, L, d = 24, 8, 2
@@ -204,11 +204,11 @@ def test_pde_normalization_rough_paths_stable():
     g = jax.grad(lambda k: jnp.sum(k.K(X)))(kern).raw_lengthscales
     assert np.all(np.isfinite(np.asarray(g)))
 
-    # typo'd engine is rejected, not silently accepted
-    bad = UntruncatedSignatureKernel.create(3, engine="pallsa",
-                                            dtype=jnp.float32)
-    with pytest.raises(ValueError, match="unknown goursat engine"):
-        bad.K(X[:4])
+    # the scan is the only solver: a solver option is rejected, not
+    # silently accepted
+    with pytest.raises(TypeError, match="engine"):
+        UntruncatedSignatureKernel.create(3, engine="pallas",
+                                          dtype=jnp.float32)
 
 
 def test_pde_psd_floor_guarantees_psd_kuu():
@@ -267,7 +267,7 @@ def test_pde_inducing_sequence_svgp_safe_by_default():
     dyadic_order=0 must be chol-safe with *default* construction — the PSD
     guard used to be opt-in via docstring. InducingSequences dispatches to
     the kernel's K_sym_psd for Kuu; explicit psd_floor=0.0 opts out."""
-    from gpsig_tpu.inducing import InducingSequences
+    from gpsig.inducing import InducingSequences
 
     rng = np.random.default_rng(5)
     X = jnp.asarray((0.9 * rng.standard_normal((24, 8, 3))).cumsum(1),
@@ -342,7 +342,7 @@ def test_vosf_pde_expansion_parity_and_truncation_gap(normalization):
 
 
 def test_vosf_pde_requires_linear_base_and_levels():
-    from gpsig_tpu.kernels.static_kernels import RBFBase
+    from gpsig.kernels.static_kernels import RBFBase
 
     kern = UntruncatedSignatureKernel.create(2, base=RBFBase())
     with pytest.raises(ValueError, match="num_levels"):
@@ -360,7 +360,7 @@ def test_vosf_pde_svgp_trains_end_to_end():
     posterior (models/svgp.py Posterior.predict_f)."""
     import optax
 
-    from gpsig_tpu.training.loop import init_state, make_step_fn
+    from gpsig.training.loop import init_state, make_step_fn
 
     rng = np.random.default_rng(8)
     N, L, d = 24, 8, 2
@@ -407,9 +407,9 @@ def test_joint_psd_covariances_schur_guarantee():
     violated on rough paths), (b) keep the whole ELBO finite and
     differentiable, and (c) fall back to the standard path for exact
     kernels and for joint_psd=False."""
-    from gpsig_tpu import gauss
-    from gpsig_tpu.inducing import InducingSequences
-    from gpsig_tpu.kernels.signature import SignatureRBF
+    from gpsig import gauss
+    from gpsig.inducing import InducingSequences
+    from gpsig.kernels.signature import SignatureRBF
 
     rng = np.random.default_rng(9)
     # rough paths + coarse FD = the hostile regime

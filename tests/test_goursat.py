@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gpsig_tpu.ops import goursat, signature as sig
+from gpsig.ops import goursat, signature as sig
 from oracles import explicit_sig_kernel_levels, goursat_solve_naive
 
 
@@ -85,63 +85,13 @@ def test_refine_increments_preserves_total():
     np.testing.assert_allclose(float(r.sum()), float(inc.sum()), rtol=1e-12)
 
 
-# ---------------------------------------------------------------------------
-# Fused Pallas forward + adjoint with in-kernel dyadic refinement
-# (interpret mode; the TPU analogue of the reference CUDA op's second
-# gradient launch — SURVEY.md §2.2/§3.4).
-# ---------------------------------------------------------------------------
-
-
-@pytest.mark.parametrize("shape,order", [((5, 5), 0), ((5, 3), 1),
-                                         ((4, 6), 2), ((20, 20), 2)])
-def test_fused_corner_refined_matches_scan(shape, order):
-    rng = np.random.default_rng(7)
-    Su, Tu = shape
-    inc = jnp.asarray(0.4 * rng.standard_normal((3, Su, Tu)), jnp.float32)
-    want = np.asarray(
-        goursat.goursat_corner(goursat.refine_increments(inc, order))
-    )
-    got = np.asarray(
-        goursat._corner_refined_impl(inc, order, interpret=True)
-    )
-    scale = max(1e-9, np.abs(want).max())
-    np.testing.assert_allclose(got / scale, want / scale, atol=1e-6)
-
-
-@pytest.mark.parametrize("shape,order", [((5, 5), 0), ((5, 3), 1),
-                                         ((4, 6), 2), ((20, 20), 2)])
-def test_fused_adjoint_refined_matches_autodiff(shape, order):
-    rng = np.random.default_rng(8)
-    Su, Tu = shape
-    inc = jnp.asarray(0.4 * rng.standard_normal((2, Su, Tu)), jnp.float32)
-    gbar = jnp.asarray(rng.standard_normal(2), jnp.float32)
-    want = np.asarray(jax.grad(
-        lambda a: jnp.sum(
-            gbar * goursat.goursat_corner(
-                goursat.refine_increments(a, order)
-            )
-        )
-    )(inc))
-    (got,) = goursat._corner_refined_bwd_impl(inc, order, gbar,
-                                              interpret=True)
-    got = np.asarray(got)
-    scale = max(1e-9, np.abs(want).max())
-    np.testing.assert_allclose(got / scale, want / scale, atol=2e-6)
-
-
-def test_fused_grad_vmem_gate():
-    """Flagship shapes fit the fused backward; absurd ones fall back."""
-    assert goursat._fused_block_pairs(49, 49, 2) >= 8  # L=50, order 2
-    assert goursat._fused_block_pairs(49, 49, 0) >= 8
-    assert goursat._fused_block_pairs(500, 500, 3) == 0
-
-
 def test_corner_refined_custom_vjp_cpu_fallback():
-    """On CPU the public custom_vjp routes primal+grad through the scan;
-    values and gradients must match the composed reference exactly."""
+    """The public PDE entry point routes primal+grad through the scan and
+    its adjoint; values and gradients must match the composed reference
+    exactly."""
     rng = np.random.default_rng(9)
     inc = jnp.asarray(0.3 * rng.standard_normal((2, 6, 5)), jnp.float64)
-    f_new = lambda a: jnp.sum(goursat.goursat_corner_refined(a, 2))  # noqa
+    f_new = lambda a: jnp.sum(goursat.signature_kernel_pde(a, 2))  # noqa
     f_ref = lambda a: jnp.sum(  # noqa
         goursat.goursat_corner(goursat.refine_increments(a, 2))
     )

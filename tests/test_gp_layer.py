@@ -11,14 +11,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gpsig_tpu import config as cfg
-from gpsig_tpu import gauss
-from gpsig_tpu import likelihoods as liks
-from gpsig_tpu.inducing import InducingSequences, make_inducing_tensors_from_data
-from gpsig_tpu.kernels.signature import SignatureRBF
-from gpsig_tpu.models.gpr import GPR
-from gpsig_tpu.models.svgp import SVGP
-from gpsig_tpu.training.natgrad import natgrad_step
+from gpsig import config as cfg
+from gpsig import gauss
+from gpsig import likelihoods as liks
+from gpsig.inducing import InducingSequences, make_inducing_tensors_from_data
+from gpsig.kernels.signature import SignatureRBF
+from gpsig.models.gpr import GPR
+from gpsig.models.svgp import SVGP
+from gpsig.training.natgrad import natgrad_step
 
 
 def _paths(rng, N, L, d, scale=0.5):
@@ -202,7 +202,7 @@ def test_likelihood_quadrature_sanity():
 def test_svgp_classification_trains():
     """End-to-end: two separable sequence classes, inducing tensors,
     alternating natgrad + Adam (BASELINE config-2 shaped smoke test)."""
-    from gpsig_tpu.training.loop import fit
+    from gpsig.training.loop import fit
 
     rng = np.random.default_rng(7)
     N, L, d = 20, 8, 2
@@ -234,8 +234,9 @@ def test_svgp_classification_trains():
 
 
 def test_gp_layer_pins_matmul_precision():
-    """Regression: on TPU the default matmul precision is one bf16 pass,
-    which also drives the blocked matmuls inside cholesky/triangular_solve.
+    """Regression: a reduced default matmul precision (TF32 on the GPU,
+    or an explicit bfloat16 default) also drives the blocked matmuls inside
+    cholesky/triangular_solve.
     The GP layer differences nearly-equal quantities through those solves,
     so it must trace with HIGHEST precision regardless of the global
     default (cf. config.precise_linalg)."""
@@ -263,7 +264,7 @@ def test_f32_jitter_keeps_inducing_tensor_kuu_factorisable():
     """Regression: inducing-tensor Grams are structurally rank-deficient
     (most eigenvalues < 1e-6 even in f64 — low-d factors are nearly
     collinear), so GPflow's 1e-6 jitter sits below f32 rounding error and
-    chol(Kuu) NaN'd on TPU. default_jitter must be dtype-aware."""
+    an f32 chol(Kuu) can NaN. default_jitter must be dtype-aware."""
     assert cfg.default_jitter(jnp.float32) >= 1e-4
     assert cfg.default_jitter(jnp.float64) == cfg.settings.jitter
     assert cfg.default_jitter() == cfg.settings.jitter
@@ -284,12 +285,12 @@ def test_f32_jitter_keeps_inducing_tensor_kuu_factorisable():
 
 
 def test_stable_cholesky_rescues_indefinite_matrix():
-    """TPU's blocked f32 Cholesky NaNs on matrices LAPACK survives (hit
-    on-chip at M=500 inducing tensors, num_levels=5 — Kuu min eig ≈ the
-    base jitter). stable_cholesky escalates jitter under stop_gradient and
+    """A blocked f32 Cholesky can NaN on matrices LAPACK survives (M=500
+    inducing tensors, num_levels=5 puts Kuu's min eig ≈ the base jitter).
+    stable_cholesky escalates jitter under stop_gradient and
     must (a) leave healthy matrices untouched, (b) rescue matrices whose
     plain Cholesky is NaN, (c) keep gradients finite either way."""
-    from gpsig_tpu import gauss
+    from gpsig import gauss
 
     rng = np.random.default_rng(0)
     A = rng.standard_normal((12, 12))
@@ -323,7 +324,7 @@ def test_natgrad_diag_backoff_keeps_precision_positive():
     new precision S^-1 - 2*gamma*g_S would go negative, instead of pinning
     it at the jitter floor (which inflated S by 1e8 and exploded the KL on
     the VOSF q_diag path at step 0)."""
-    from gpsig_tpu.training.natgrad import gaussian_natgrad_update
+    from gpsig.training.natgrad import gaussian_natgrad_update
 
     M, C = 4, 2
     mu = jnp.zeros((M, C))
@@ -394,7 +395,7 @@ def test_posterior_matches_predict_f(whiten, q_diag):
 def test_posterior_vosf_identity_fast_path(q_diag):
     """Kuu = I posterior: diagonal-q keeps the O(M) quad (never builds an
     [M, M] matrix); full-q uses I − SSᵀ."""
-    from gpsig_tpu.kernels.vosf import (
+    from gpsig.kernels.vosf import (
         ExplicitSignatureKernel,
         OrthogonalSignatureFeatures,
     )

@@ -6,7 +6,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gpsig_tpu.kernels.signature import (
+from gpsig.kernels.signature import (
     SignatureLinear,
     SignaturePoly,
     SignatureRBF,
@@ -198,14 +198,15 @@ def test_poly_kernel_runs():
 
 
 # ---------------------------------------------------------------------------
-# Engine dispatch parity: engine='pallas' (general fused kernel, interpret
-# on CPU) vs engine='xla' through the full kernel layer — order >= 2,
-# difference=False, Poly/Cosine bases, lags, and gradients (VERDICT r3
-# directives #1/#6). Reference: gpsig/kernels.py::SignatureKernel option
-# surface (SURVEY.md §2.1).
+# Engine dispatch parity: engine='pallas' vs engine='xla' through the full
+# kernel layer — order >= 2, difference=False, Poly/Cosine bases, lags, and
+# gradients. The fused kernel (interpreted on CPU) serves the order-1
+# RBF/Linear rows; the others must fall through to the plain path.
+# Reference: gpsig/kernels.py::SignatureKernel option surface (SURVEY.md
+# §2.1).
 # ---------------------------------------------------------------------------
 
-from gpsig_tpu.kernels.signature import SignatureCosine  # noqa: E402
+from gpsig.kernels.signature import SignatureCosine  # noqa: E402
 
 
 def _engine_pair(ctor, d, nl, **kw):
@@ -249,9 +250,9 @@ def test_general_fused_engine_matches_xla(ctor, kw):
     dict(difference=False),
 ])
 def test_lags_through_fused_engines(order, kw):
-    """num_lags composes with the fused Pallas engines: the kernel sees
-    d·(1+lags) channels plus mixing weights (lag augmentation happens
-    upstream) — parity incl. lag/gamma gradients (VERDICT r3 #6)."""
+    """num_lags composes with the fused kernel: it sees d·(1+lags)
+    channels plus mixing weights (lag augmentation happens upstream) —
+    parity incl. lag/gamma gradients."""
     rng = np.random.default_rng(8)
     X = jnp.asarray(_paths(rng, 4, 8, 2))
     Y = jnp.asarray(_paths(rng, 3, 8, 2))
@@ -285,8 +286,8 @@ def test_lags_through_fused_engines(order, kw):
     ],
 )
 def test_general_fused_engine_grads_match_xla(ctor, kw):
-    """Hyperparameter gradients through the general fused path (incl. the
-    Poly offset via its folded constant channel) match the XLA engine."""
+    """Hyperparameter gradients with engine='pallas' (the plain path for
+    these configurations, incl. the Poly offset) match the XLA engine."""
     rng = np.random.default_rng(9)
     X = jnp.asarray(_paths(rng, 4, 6, 2))
     Y = jnp.asarray(_paths(rng, 3, 6, 2))

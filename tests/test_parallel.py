@@ -12,13 +12,13 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from gpsig_tpu import likelihoods as liks
-from gpsig_tpu.inducing import make_inducing_tensors_from_data
-from gpsig_tpu.kernels.signature import SignatureRBF
-from gpsig_tpu.models.svgp import SVGP
-from gpsig_tpu.parallel import mesh as meshlib
-from gpsig_tpu.parallel.train import make_sharded_step_fn, sharded_gram
-from gpsig_tpu.training.loop import init_state, make_step_fn
+from gpsig import likelihoods as liks
+from gpsig.inducing import make_inducing_tensors_from_data
+from gpsig.kernels.signature import SignatureRBF
+from gpsig.models.svgp import SVGP
+from gpsig.parallel import mesh as meshlib
+from gpsig.parallel.train import make_sharded_step_fn, sharded_gram
+from gpsig.training.loop import init_state, make_step_fn
 
 
 def _paths(rng, N, L, d, scale=0.5):
@@ -91,8 +91,8 @@ def test_sharded_step_matches_single_device(mesh_dp, use_natgrad):
 
 
 def test_goursat_tile_matches_subgrid():
-    from gpsig_tpu.ops import goursat
-    from gpsig_tpu.parallel.goursat_sp import goursat_tile
+    from gpsig.ops import goursat
+    from gpsig.parallel.goursat_sp import goursat_tile
 
     rng = np.random.default_rng(10)
     inc = jnp.asarray(0.4 * rng.standard_normal((2, 6, 7)))
@@ -114,8 +114,8 @@ def test_goursat_tile_matches_subgrid():
 
 @pytest.mark.parametrize("col_block", [3, 5, 16])
 def test_goursat_seq_sharded_matches_serial(mesh_dp, col_block):
-    from gpsig_tpu.ops import goursat
-    from gpsig_tpu.parallel.goursat_sp import goursat_corner_seq_sharded
+    from gpsig.ops import goursat
+    from gpsig.parallel.goursat_sp import goursat_corner_seq_sharded
 
     rng = np.random.default_rng(11)
     inc = jnp.asarray(0.3 * rng.standard_normal((3, 16, 13)))
@@ -127,10 +127,10 @@ def test_goursat_seq_sharded_matches_serial(mesh_dp, col_block):
 
 
 def test_sharded_gram_pallas_matches_dense(mesh2d):
-    """VERDICT r2 #1: the fused Pallas Gram engine composed with Gram-tile
-    sharding (interpret mode on the CPU mesh). Per-shard sizes are
-    deliberately non-lane-aligned: 12 rows / 4 data shards = 3, 10 cols /
-    2 tile shards = 5 — the in-kernel padding must be per-shard correct."""
+    """The fused Triton Gram kernel composed with Gram-tile sharding
+    (interpreted on the CPU mesh). Per-shard sizes are deliberately not
+    multiples of the kernel's program block: 12 rows / 4 data shards = 3,
+    10 cols / 2 tile shards = 5 — the padding must be per-shard correct."""
     rng = np.random.default_rng(3)
     X = jnp.asarray(_paths(rng, 12, 6, 2))
     Y = jnp.asarray(_paths(rng, 10, 6, 2))
@@ -138,7 +138,7 @@ def test_sharded_gram_pallas_matches_dense(mesh2d):
     kern_x = kern_p.replace(engine="xla")
     want = np.asarray(kern_x.K(X, Y))
     got = np.asarray(sharded_gram(kern_p, mesh2d, X, Y))
-    # fused-kernel parity is at f32 resolution (MXU f32 accumulation)
+    # kernel vs XLA path: same math, other summation order
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-7)
 
 
@@ -154,9 +154,9 @@ def test_sharded_gram_pallas_symmetric(mesh2d):
 @pytest.mark.parametrize("use_natgrad", [False, True])
 def test_sharded_step_pallas_matches_single_device(mesh_dp, use_natgrad):
     """The full data-parallel natgrad+Adam step with the kernel forced to
-    engine='pallas': Kuf runs the fused tens-vs-seq kernel and the
-    normalisation diag runs the fused diag kernel *inside shard_map*, at a
-    per-shard batch of 2 sequences (nothing lane-aligned)."""
+    engine='pallas': the normalisation diag of Kuf runs the fused diag
+    kernel *inside shard_map*, at a per-shard batch of 2 sequences (well
+    below the kernel's program block)."""
     rng = np.random.default_rng(5)
     N = 16
     X = jnp.asarray(_paths(rng, N, 6, 2))
@@ -179,7 +179,7 @@ def test_sharded_step_pallas_matches_single_device(mesh_dp, use_natgrad):
     st, elbo = sh_step(st, Xs, Ys, key)
     st, elbo2 = sh_step(st, Xs, Ys, key)
 
-    # single-device reference also runs the fused engines (interpret), so
+    # single-device reference also runs the fused kernel (interpret), so
     # the only divergence is psum ordering + per-shard padding: tight tol
     np.testing.assert_allclose(float(elbo), float(ref_elbo), rtol=1e-6)
     np.testing.assert_allclose(float(elbo2), float(ref_elbo2), rtol=1e-6)

@@ -9,7 +9,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from gpsig_tpu.ops import signature as sig
+from gpsig.ops import signature as sig
 from oracles import (
     explicit_sig_kernel_levels,
     sig_kernel_levels,

@@ -7,12 +7,12 @@ import jax
 import jax.numpy as jnp
 import optax
 
-from gpsig_tpu import likelihoods as liks
-from gpsig_tpu.inducing import make_inducing_sequences_from_data
-from gpsig_tpu.kernels.signature import SignatureRBF
-from gpsig_tpu.models.svgp import SVGP
-from gpsig_tpu.training.loop import fit, init_state, make_step_fn
-from gpsig_tpu.training.natgrad import natgrad_step
+from gpsig import likelihoods as liks
+from gpsig.inducing import make_inducing_sequences_from_data
+from gpsig.kernels.signature import SignatureRBF
+from gpsig.models.svgp import SVGP
+from gpsig.training.loop import fit, init_state, make_step_fn
+from gpsig.training.natgrad import natgrad_step
 
 
 def _setup(rng, N=24, L=10, d=2, C=3):
@@ -62,7 +62,7 @@ def test_fit_improves_and_moves_hypers():
 def test_svgp_with_pde_kernel():
     """The untruncated (Goursat) kernel plugs into SVGP with inducing
     sequences — Kuu/Kuf route through kernel.K (SURVEY.md §2.2 path)."""
-    from gpsig_tpu.kernels.pde import UntruncatedSignatureKernel
+    from gpsig.kernels.pde import UntruncatedSignatureKernel
 
     rng = np.random.default_rng(3)
     X = jnp.asarray((0.3 * rng.standard_normal((14, 8, 2))).cumsum(1))
@@ -90,7 +90,7 @@ def test_multi_step_matches_single_steps():
     """make_multi_step_fn scans k steps inside one dispatch (host-dispatch
     amortization); with the same batches/keys it must equal k sequential
     make_step_fn calls exactly — same trace, same math."""
-    from gpsig_tpu.training.loop import make_multi_step_fn
+    from gpsig.training.loop import make_multi_step_fn
 
     rng = np.random.default_rng(7)
     X, y, model = _setup(rng)
@@ -128,8 +128,8 @@ def test_pde_kernel_training_survives_joint_psd_violation():
     cancels the A terms) and a NaN on training step 2 once q_sqrt moved.
     The conditional's variance floor (gauss.py) must keep multi-step
     natgrad+Adam training finite on exactly that recipe, in float32."""
-    from gpsig_tpu.data.synthetic import classification_sequences
-    from gpsig_tpu.kernels.pde import UntruncatedSignatureKernel
+    from gpsig.data.synthetic import classification_sequences
+    from gpsig.kernels.pde import UntruncatedSignatureKernel
 
     X, y = classification_sequences(seed=0, N=24, L=10, d=2,
                                     num_classes=2)
@@ -170,7 +170,7 @@ def test_conditional_var_floor_inert_for_exact_kernels():
     """The variance floor must not perturb exact-kernel conditionals: a
     well-posed PSD system's variances sit at jitter scale or above, so
     conditional() output matches the direct formula to full precision."""
-    from gpsig_tpu import gauss
+    from gpsig import gauss
 
     rng = np.random.default_rng(0)
     M, N, C = 5, 7, 2
@@ -219,7 +219,7 @@ def test_map_prior_regularises():
 
 
 def test_step_fn_resume_from_checkpoint(tmp_path):
-    from gpsig_tpu.utils.checkpoint import restore_checkpoint, save_checkpoint
+    from gpsig.utils.checkpoint import restore_checkpoint, save_checkpoint
 
     rng = np.random.default_rng(2)
     X, y, model = _setup(rng)
@@ -286,7 +286,7 @@ def test_floor_marginal_variance_scales_with_amplitude():
     with signal variance at/below the old absolute floor (1e-8 in f32)
     must not be silently perturbed, and a degenerate all-zero scale must
     still produce a positive, log-finite floor."""
-    from gpsig_tpu import gauss
+    from gpsig import gauss
 
     v = jnp.asarray([1e-10, -1e-12], jnp.float32)
     knn = jnp.asarray([1e-10, 1e-10], jnp.float32)

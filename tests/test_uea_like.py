@@ -13,7 +13,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from gpsig_tpu.data import uea_like
+from gpsig.data import uea_like
 
 WINDOWS = os.path.join(os.path.dirname(__file__), os.pardir,
                        "benchmarks", "expected_windows.json")
